@@ -1,6 +1,6 @@
-"""restir_tpu — a TPU-native real-time ReSTIR DI/GI renderer.
+"""restir_tpu — a real-time ReSTIR DI/GI renderer in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the CUDA
+A ground-up JAX/XLA re-design of the capabilities of the CUDA
 reference (HummaWhite/ReSTIR): scene loading, SAH/MTBVH acceleration,
 physically-based BSDFs, NEE with alias-table light sampling, ReSTIR
 direct/indirect illumination with temporal+spatial reservoir reuse,

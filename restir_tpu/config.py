@@ -60,13 +60,13 @@ class RenderConfig:
     spatial_neighbors: int = 5
     spatial_radius: float = 5.0
     # candidate generation: "reference" = the CUDA design (K power-
-    # proportional RIS candidates); "cdf" = TPU-native exact per-pixel
-    # CDF over all lights on the MXU (ops/lights.sample_light_cdf);
+    # proportional RIS candidates); "cdf" = exact per-pixel CDF over
+    # all lights (ops/lights.sample_light_cdf);
     # "auto" = cdf everywhere. NOTE: on env-map scenes cdf samples the
     # environment through a 16x32 piecewise-constant tile grid (sample
     # radiance = tile mean), so sub-tile env features (sun disks) blur
     # relative to exact bilinear env lookups; set ris_mode="reference"
-    # for the exact env sampler on the general (non-fused) path.
+    # for the exact env sampler.
     ris_mode: str = "auto"
     cdf_candidates: int = 4
 
@@ -80,7 +80,7 @@ class RenderConfig:
     svgf_sig_normal: float = 128.0
     modulate_albedo: bool = True
 
-    # intersector: "auto" picks the MXU brute-force path for small/medium
+    # intersector: "auto" picks the brute-force path for small/medium
     # scenes and the stackless-BVH gather walk for large ones
     intersector: str = "auto"
 
@@ -89,21 +89,19 @@ class RenderConfig:
     with_textures: bool = False
     single_sided_lights: bool = True  # SCENE_LIGHT_SINGLE_SIDED
     # material-set flags (conservative defaults): when a scene contains
-    # no metallic / no dielectric materials, the lockstep kernels drop
-    # those whole BSDF chains at compile time — the TPU answer to the
+    # no metallic / no dielectric materials, the compiled passes drop
+    # those whole BSDF chains — the array-program answer to the
     # reference's per-thread divergence (material.h:218-256), where idle
     # lanes still pay the union of all branches. Derive with
     # config.mat_flags(scene) (app.py does this automatically).
     scene_has_metallic: bool = True
     scene_has_dielectric: bool = True
     # any material with the procedural base-color marker (tex id < -1.5):
-    # when False the kernels drop the sine-grid chain (a full pcg4d +
-    # 2 sins PER CALL — ~5 calls/frame in the GI trace kernel)
+    # when False the compiled passes drop the sine-grid chain
     scene_has_procedural: bool = True
 
     # sampler for the path-tracer draws: "pcg4d" (counter hash, default)
-    # or "sobol" (Owen-scrambled, SAMPLER_USE_SOBOL equivalent). The
-    # fused ReSTIR kernels always use pcg4d.
+    # or "sobol" (Owen-scrambled, SAMPLER_USE_SOBOL equivalent).
     sampler: str = "pcg4d"
 
     # G-buffer preview channel (GBUFFER_PREVIEW tracer / viewer):
@@ -132,7 +130,7 @@ class RenderConfig:
 
 def mat_flags(scene) -> dict:
     """Static material-set flags for a concrete SceneData (host-side,
-    BEFORE jit): which BSDF chains the lockstep kernels must compile.
+    BEFORE jit): which BSDF chains the compiled passes must keep.
     Usage: cfg = cfg.replace(**mat_flags(scene))."""
     import numpy as np
 
@@ -141,9 +139,9 @@ def mat_flags(scene) -> dict:
     return {
         "scene_has_metallic": bool((mt == 1).any()),
         "scene_has_dielectric": bool((mt == 2).any()),
-        # mat_attr col 7: texture id; procedural marker is -2
+        # base-color map id; the procedural marker is -2
         "scene_has_procedural": bool(
-            (np.asarray(scene.mat_attr[:, 7]) < -1.5).any()),
+            (np.asarray(scene.mat_base_map) < -1.5).any()),
     }
 
 

@@ -1,6 +1,6 @@
 """Denoisers: À-trous EAW wavelet filter and SVGF.
 
-TPU re-design of /root/reference/src/denoiser.cu. The reference's 5x5
+Array-program form of /root/reference/src/denoiser.cu. The reference's 5x5
 per-pixel stencil loops with `continue`-based boundary/similarity
 rejection become 25 STATIC shifted-plane taps (pad + slice — no dynamic
 gathers) with masked weights. The reference left both filters dormant
@@ -8,9 +8,7 @@ gathers) with masked weights. The reference left both filters dormant
 they are wired into the frame step behind `RenderConfig.denoiser`.
 
 Layout: all per-pixel data is processed as CHANNEL-MAJOR [C, H, W]
-planes. [H, W, 3] arrays would be tile-padded 3 -> 128 on TPU (42x
-memory on every shifted copy); [C, H, W] keeps the wide W dimension
-minor and unpadded.
+planes, which keeps the wide W dimension minor.
 
 Filter weights follow the reference exactly:
 - EAW (denoiser.cu:64-134): w = min(1, exp(-d2/sigma)) on color/normal/

@@ -1,6 +1,6 @@
 """G-buffer pass: primary-hit attributes + motion vectors.
 
-TPU re-design of /root/reference/src/gbuffer.cu:3-86 and gbuffer.h:15-59.
+Array-program form of /root/reference/src/gbuffer.cu:3-86 and gbuffer.h:15-59.
 Differences from the reference, by design:
 
 - The reference traces the primary ray TWICE per frame (once at the
@@ -20,7 +20,7 @@ Differences from the reference, by design:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import jax.numpy as jnp
 

@@ -1,10 +1,10 @@
 """Reference path tracers: full MIS PT, direct-only NEE, indirect-only.
 
 Ports of /root/reference/src/pathtrace.cu:156-432 (singleKernelPT,
-PTDirectKernel, PTIndirectKernel), re-shaped for TPU: the per-thread
-bounce loop with `break`s becomes a statically-unrolled masked loop over
-[R] ray batches; dead lanes park their traversal cursor so they cost no
-HBM traffic.
+PTDirectKernel, PTIndirectKernel), re-shaped as array programs: the
+per-thread bounce loop with `break`s becomes a masked loop over [R] ray
+batches; dead lanes park their traversal cursor so they skip the BVH
+walk.
 
 PTDirect is the unbiased A/B target for ReSTIR DI (main.cpp:166-173).
 
@@ -27,7 +27,6 @@ from ..config import RenderConfig
 from ..ops import bsdf as bsdf_ops
 from ..ops import intersect as ix
 from ..ops import lights as light_ops
-from ..ops import surface as surf
 from ..ops.camera import Camera, pixel_centers, sample_rays
 from ..ops.primary import trace_primary
 from ..ops.texture import env_sample_bilinear
@@ -116,8 +115,7 @@ def pt_trace(scene: SceneData, cam: Camera, cfg: RenderConfig, looper):
 
     # Bounce loop as lax.scan: the per-depth state is one bounded carry,
     # so XLA allocates loop buffers ONCE instead of holding every
-    # unrolled depth's intermediates live (the unrolled form exceeds
-    # single-chip HBM at 1080p).
+    # unrolled depth's intermediates live.
     def bounce(carry, depth):
         direct, indirect, alive, throughput, pos, norm, wo, mat = carry
 

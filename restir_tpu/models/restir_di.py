@@ -1,7 +1,7 @@
 """ReSTIR DI: reservoir-based spatiotemporal importance resampling of
 direct illumination (Bitterli et al. 2020).
 
-TPU-native re-design of /root/reference/src/restir.cu:111-231
+Array-program form of /root/reference/src/restir.cu:111-231
 (`ReSTIRDirectKernel`). The one-megakernel-per-pixel SIMT structure
 becomes a sequence of whole-frame array ops:
 
@@ -32,7 +32,7 @@ miss pixels so the modulated output is env radiance once.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -68,7 +68,7 @@ def find_temporal_neighbor(
 
     All reuse state (reservoir + last-frame similarity attributes) is
     packed into ONE row matrix so the motion-indexed fetch is a single
-    gather (see reservoir.pack_rows for why this matters on TPU).
+    gather (see reservoir.pack_channels).
 
     Returns (neighbor reservoir, ok mask); rejected lanes must be
     treated as an empty reservoir by the caller.
@@ -99,12 +99,11 @@ def _merge_spatial_neighbors(
     """Aggregate up to `spatial_neighbors` disk neighbors into a fresh
     reservoir — mergeSpatialNeighborDirect (restir.cu:87-100).
 
-    Deviation from the reference, for TPU layout reasons: the disk
-    offset of neighbor i is drawn ONCE PER FRAME and shared by all
-    pixels (the reference draws per-pixel offsets, restir.cu:53). A
-    shared offset turns the neighbor fetch from an arbitrary [R]->[R]
-    gather (whose operand TPU copies into a 128x-padded layout — GBs of
-    temps) into a dynamic 2-D roll of the packed reuse buffer. The
+    Deviation from the reference: the disk offset of neighbor i is
+    drawn ONCE PER FRAME and shared by all pixels (the reference draws
+    per-pixel offsets, restir.cu:53). A shared offset turns the neighbor
+    fetch from an arbitrary [R]->[R] gather into a dynamic 2-D roll of
+    the packed reuse buffer. The
     merge randomness and similarity rejection stay per-pixel; offsets
     re-randomize every frame through `looper`, so the estimator keeps
     its coverage over the disk — only intra-frame offset correlation is
@@ -147,6 +146,8 @@ def _merge_spatial_neighbors(
     return agg
 
 
+# Pixels per RIS chunk (lax.map): bounds the [chunk, L] target/CDF
+# matrices. The value is not yet measured on the H100 (ROADMAP Speed 6).
 _RIS_CHUNK = 32768
 
 
@@ -158,38 +159,15 @@ def resolve_ris_mode(cfg: RenderConfig) -> str:
     return "cdf"
 
 
-def _ris_cdf(scene, pos, dmat, norm, wo, shade, prim_id, cfg: RenderConfig, looper):
-    """TPU-native candidate stage: K draws from the exact per-pixel
-    light CDF (see ops/lights.sample_light_cdf), streamed into the
-    reservoir with exact pdfs. K=cdf_candidates (default 4) achieves the
-    selection quality of many power-proportional candidates because the
-    draw distribution already tracks the target.
+def _ris_cdf(scene, pos, dmat, norm, wo, shade, cfg: RenderConfig, looper):
+    """Candidate stage: K draws from the exact per-pixel light CDF (see
+    ops/lights.sample_light_cdf), streamed into the reservoir with exact
+    pdfs. K=cdf_candidates (default 4) achieves the selection quality of
+    many power-proportional candidates because the draw distribution
+    already tracks the target.
 
-    Ray-chunked (lax.map) so the [chunk, L] target/CDF matrices stay
-    VMEM-sized instead of materializing [R, L] in HBM. On TPU the whole
-    stage runs as one fused Pallas kernel (ops/pallas/ris_kernel.py)."""
-    from ..ops.intersect import _on_tpu
-
-    if _on_tpu() and not cfg.has_env_map:
-        from ..ops.pallas.ris_kernel import ris_cdf_pallas
-
-        # NOTE: the kernel also runs the winner-visibility pass in-place
-        # (weights of occluded winners come back zeroed)
-        li, wi, dist, weight, m = ris_cdf_pallas(
-            pos, norm, wo, dmat.type, dmat.metallic, dmat.roughness, shade,
-            prim_id, looper,
-            scene.light_verts, scene.light_normal, scene.light_radiance,
-            scene.light_area, scene.light_center, scene.light_radius,
-            scene.tri_xform,
-            k=cfg.cdf_candidates, single_sided=cfg.single_sided_lights,
-            ctr_base=_CTR_RIS, has_met=cfg.scene_has_metallic,
-        )
-        return rsv.Reservoir(
-            sample=rsv.DirectSample(li=li, wi=wi, dist=dist),
-            weight=weight,
-            m=m,
-        ), True
-
+    Ray-chunked (lax.map over _RIS_CHUNK pixels) so the [chunk, L]
+    target/CDF matrices are never materialized at [R, L]."""
     R = cfg.num_pixels
     chunk = min(_RIS_CHUNK, R)
     c = -(-R // chunk)
@@ -234,8 +212,7 @@ def _ris_cdf(scene, pos, dmat, norm, wo, shade, prim_id, cfg: RenderConfig, loop
             cands.append(cand)
         # single-draw inverse-CDF winner: P(pick k) = w_k / W, the same
         # distribution as the reference's K streaming reservoir updates
-        # (restir.h:38-44) in one op chain — mirrored bit-for-bit by the
-        # fused kernel (ops/pallas/fused_di._ris_select_kernel)
+        # (restir.h:38-44) in one op chain
         cums = []
         c = ws[0]
         for k in range(1, len(ws)):
@@ -262,8 +239,7 @@ def _ris_cdf(scene, pos, dmat, norm, wo, shade, prim_id, cfg: RenderConfig, loop
         )
 
     res = jax.lax.map(per_chunk, inputs)
-    res = jax.tree.map(lambda x: x.reshape((c * chunk,) + x.shape[2:])[:R], res)
-    return res, False
+    return jax.tree.map(lambda x: x.reshape((c * chunk,) + x.shape[2:])[:R], res)
 
 
 def _ris_chunked(scene, pos, dmat, norm, wo, shade, cfg: RenderConfig, looper):
@@ -348,29 +324,20 @@ def restir_direct(
 
     # ---- 1. RIS over K candidates without visibility (restir.cu:156-169)
     #
-    # Memory-layout note: a whole-frame fori_loop would stream the [R]
-    # reservoir carry (~9 floats/pixel) through HBM on every one of the
-    # K iterations — gigabytes per frame. The reference mode processes
-    # rays in VMEM-sized chunks (lax.map) instead; the cdf mode needs
-    # only K=4 MXU-friendly passes.
+    # Both modes process rays in chunks (lax.map): a whole-frame
+    # fori_loop would stream the [R] reservoir carry (~9 floats/pixel)
+    # through device memory on every one of the K iterations.
     if resolve_ris_mode(cfg) == "cdf":
-        res, vis_done = _ris_cdf(
-            scene, it.pos, dmat, norm, wo, shade, it.prim_id, cfg, looper
-        )
+        res = _ris_cdf(scene, it.pos, dmat, norm, wo, shade, cfg, looper)
     else:
         res = _ris_chunked(scene, it.pos, dmat, norm, wo, shade, cfg, looper)
-        vis_done = False
 
     # ---- 2. winner visibility: occluded => weight 0 (restir.cu:172-176)
-    # (the pallas cdf kernel already ran this in-register)
-    if not vis_done:
-        # env samples carry dist = ENV_DIST; clamp the segment endpoint
-        # like sample_direct_light (scene.h:386)
-        target = it.pos + res.sample.wi * jnp.minimum(
-            res.sample.dist, 1e6
-        )[..., None]
-        occluded = ix.test_occlusion(trv, it.pos, target, active=shade)
-        res = res._replace(weight=jnp.where(occluded, 0.0, res.weight))
+    # env samples carry dist = ENV_DIST; clamp the segment endpoint like
+    # sample_direct_light (scene.h:386)
+    target = it.pos + res.sample.wi * jnp.minimum(res.sample.dist, 1e6)[..., None]
+    occluded = ix.test_occlusion(trv, it.pos, target, active=shade)
+    res = res._replace(weight=jnp.where(occluded, 0.0, res.weight))
 
     # ---- 3. temporal reuse (restir.cu:180-185)
     if cfg.reuse & ReuseMode.TEMPORAL:

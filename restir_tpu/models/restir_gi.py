@@ -1,6 +1,6 @@
 """ReSTIR GI: reservoir resampling of indirect-lighting path samples.
 
-TPU re-design of /root/reference/src/restir.cu:242-416
+Array-program form of /root/reference/src/restir.cu:242-416
 (`ReSTIRIndirectKernel` — the reference implements it fully but leaves it
 commented out of the frame loop, main.cpp:168; here it is a first-class
 tracer mode). Per pixel and frame:
@@ -34,7 +34,6 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import intersect as ix
 from ..ops import lights as light_ops
 from ..ops import reservoir as rsv
-from ..ops import surface as surf
 from ..ops.primary import trace_primary
 from ..ops.texture import env_sample_bilinear
 from ..scene.scene_data import DIELECTRIC, LIGHT, SceneData, traversal_arrays
@@ -53,92 +52,6 @@ def _p_hat_gi(sample: rsv.IndirectSample) -> jnp.ndarray:
     return mathx.luminance(sample.lo)
 
 
-def gi_fused_eligible(scene: SceneData, cfg: RenderConfig,
-                      r: int) -> bool:
-    """Static gate for the fused GI trace kernel
-    (ops/pallas/gi_kernel.py): VMEM-resident geometry, pcg4d streams,
-    no env map, no loaded textures (procedural base colors ARE
-    handled in-kernel), whole 1024-ray tiles."""
-    return (
-        cfg.sampler == "pcg4d"
-        and not cfg.has_env_map
-        and not cfg.with_textures
-        and scene.tex_data.shape[0] <= 1  # dummy [1, 3] when untextured
-        and scene.verts.shape[0] <= 1024
-    )
-
-
-def _build_gi_in_pack(it, mat, ray_dir):
-    """[IN_CH, R/128, 128] trace-kernel input pack from the primary-hit
-    structs (pads partial 1024-ray tiles)."""
-    from ..ops.pallas import gi_kernel as gk
-
-    r = it.pos.shape[0]
-    rp = -(-r // 1024) * 1024  # kernel tiles are 1024 rays
-    alive = it.valid & (mat.type != LIGHT)
-    zeros = jnp.zeros((r,), jnp.float32)
-    rows = [
-        it.pos[:, 0], it.pos[:, 1], it.pos[:, 2],
-        it.norm[:, 0], it.norm[:, 1], it.norm[:, 2],
-        ray_dir[:, 0], ray_dir[:, 1], ray_dir[:, 2],
-        mat.type.astype(jnp.float32), mat.metallic, mat.roughness,
-        mat.ior, alive.astype(jnp.float32), zeros, zeros,
-    ]
-    in_pack = jnp.stack(rows, axis=0)
-    if rp != r:
-        in_pack = jnp.concatenate(
-            [in_pack, jnp.zeros((gk.IN_CH, rp - r), jnp.float32)], axis=1
-        )
-    return in_pack.reshape(gk.IN_CH, rp // 128, 128)
-
-
-def trace_gi_sample_fused(
-    scene: SceneData,
-    it,
-    mat,
-    ray_dir,
-    cfg: RenderConfig,
-    looper,
-    pix0,
-    interpret: bool = False,
-):
-    """Fused-kernel twin of trace_gi_sample (lane-for-lane parity
-    asserted in tests/test_gi_fused.py). `pix0` is the global index of
-    the first ray (band slices are contiguous)."""
-    from ..ops.pallas import gi_kernel as gk
-
-    r = it.pos.shape[0]
-    in_pack = _build_gi_in_pack(it, mat, ray_dir)
-    out = gk.gi_trace_pallas(
-        in_pack, looper, scene.tri_xform, scene.prim_attr,
-        scene.mat_attr, scene.light_prob, scene.light_alias,
-        scene.light_prim_ids, scene.light_radiance,
-        scene.sum_light_power_inv,
-        depth=cfg.trace_depth, single_sided=cfg.single_sided_lights,
-        n_lights=int(scene.light_prob.shape[0]), pix0=pix0,
-        has_met=cfg.scene_has_metallic, has_die=cfg.scene_has_dielectric,
-        has_proc=cfg.scene_has_procedural,
-        interpret=interpret,
-    )
-
-    def ch3(i):
-        return jnp.stack(
-            [out[i + k].reshape(-1)[:r] for k in range(3)], axis=-1
-        )
-
-    lo = mathx.zero_nan_or_inf(ch3(gk.GO_LO))
-    xs = ch3(gk.GO_XS)
-    sample = rsv.IndirectSample(
-        lo=lo, xv=it.pos, nv=ch3(gk.GO_NV), xs=xs, ns=ch3(gk.GO_NS),
-    )
-    prim_pdf = out[gk.GO_PDF].reshape(-1)[:r]
-    prim_delta = out[gk.GO_DELTA].reshape(-1)[:r] > 0.5
-    valid = (mathx.luminance(lo) >= 1e-8) & (
-        mathx.length(xs - it.pos) > 0.0
-    )
-    return sample, prim_pdf, prim_delta, valid
-
-
 def trace_gi_sample(
     scene: SceneData,
     it,  # primary Interaction
@@ -153,14 +66,6 @@ def trace_gi_sample(
     Returns (sample, prim_sample_pdf [R], prim_delta [R] bool,
     valid [R] bool).
     """
-    from ..ops.intersect import _on_tpu
-
-    if gi_fused_eligible(scene, cfg, pix.shape[0]) and _on_tpu():
-        # band slices are contiguous: pix[0] is the global base index
-        return trace_gi_sample_fused(
-            scene, it, mat, ray_dir, cfg, looper, pix[0]
-        )
-
     trv = traversal_arrays(scene, cfg.intersector)
     R = pix.shape[0]  # may be a band slice of the frame
 
@@ -282,72 +187,6 @@ def trace_gi_sample(
     return sample, prim_pdf, prim_delta, valid
 
 
-def gi_resolve_fused_eligible(scene: SceneData, cfg: RenderConfig,
-                              r: int) -> bool:
-    """Static gate for the FULLY fused GI pipeline (trace kernel +
-    resolve kernel, no whole-frame [R, 3] reservoir ops): the trace
-    kernel's eligibility plus whole 1024-ray frames. The windowed
-    temporal gather inherits the fused-DI deviation (pixels whose
-    motion index falls outside the 2048-window lose temporal reuse)."""
-    return gi_fused_eligible(scene, cfg, r) and r % 1024 == 0
-
-
-def restir_indirect_fused(
-    scene: SceneData,
-    gb: GBufferFrame,
-    it,
-    mat,
-    ray_dir,
-    q_prev: jnp.ndarray,  # [Q_CH, R] flat resolve pack
-    cfg: RenderConfig,
-    looper,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Fully fused ReSTIR GI frame: the trace kernel's output pack feeds
-    the resolve kernel (RIS + windowed temporal merge + clamp + shade)
-    directly — no [R, 3] reservoir ops, no band split (reference: one
-    fused ReSTIRIndirectKernel, restir.cu:242-416). Returns (indirect
-    [R, 3], next resolve pack [Q_CH, R])."""
-    from ..ops.pallas import gi_kernel as gk
-
-    r = it.pos.shape[0]
-    in_pack = _build_gi_in_pack(it, mat, ray_dir)
-    go = gk.gi_trace_pallas(
-        in_pack, looper, scene.tri_xform, scene.prim_attr,
-        scene.mat_attr, scene.light_prob, scene.light_alias,
-        scene.light_prim_ids, scene.light_radiance,
-        scene.sum_light_power_inv,
-        depth=cfg.trace_depth, single_sided=cfg.single_sided_lights,
-        n_lights=int(scene.light_prob.shape[0]), pix0=0,
-        has_met=cfg.scene_has_metallic, has_die=cfg.scene_has_dielectric,
-        has_proc=cfg.scene_has_procedural,
-        interpret=interpret,
-    )
-    shade = it.valid & (gb.prim_id != LIGHT_ID)
-    gq = jnp.stack([
-        gb.motion.astype(jnp.float32), gb.prim_id.astype(jnp.float32),
-        gb.depth, gb.norm[:, 0], gb.norm[:, 1], gb.norm[:, 2],
-        gb.albedo[:, 0], gb.albedo[:, 1], gb.albedo[:, 2],
-        shade.astype(jnp.float32),
-    ], axis=0).reshape(gk.GQ_CH, r // 128, 128)
-    ind, q = gk.gi_resolve_pallas(
-        go, in_pack, gq, q_prev, looper,
-        temporal=bool(cfg.reuse & ReuseMode.TEMPORAL),
-        temporal_clamp=cfg.temporal_clamp,
-        has_met=cfg.scene_has_metallic, interpret=interpret,
-    )
-    return ind.reshape(3, r).T, q.reshape(gk.Q_CH, r)
-
-
-def init_gi_resolve_pack(r: int) -> jnp.ndarray:
-    """Zeroed [Q_CH, R] resolve pack. Zeros are a safe empty history:
-    the stored normal (0,0,0) fails the |dot| >= 0.9 similarity test, so
-    the first frame never merges it."""
-    from ..ops.pallas import gi_kernel as gk
-
-    return jnp.zeros((gk.Q_CH, r), jnp.float32)
-
-
 def restir_indirect(
     scene: SceneData,
     gb: GBufferFrame,
@@ -367,16 +206,7 @@ def restir_indirect(
     per-pixel input is then the matching slice, while `res_in` and
     `last_gb` stay full-frame (the temporal motion gather may index any
     previous pixel). RNG streams use the global indices, so a banded
-    render is bit-identical to a whole-frame one.
-
-    When `res_in` is a raw [Q_CH, R] array (the fused resolve pack the
-    renderer's init_state builds on eligible TPU configs), the whole
-    frame routes through the fully fused kernel pipeline instead."""
-    if isinstance(res_in, jnp.ndarray):
-        assert pix is None, "fused GI is whole-frame (no band split)"
-        return restir_indirect_fused(
-            scene, gb, it, mat, ray_dir, res_in, cfg, looper
-        )
+    render is bit-identical to a whole-frame one."""
     if pix is None:
         pix = jnp.arange(cfg.num_pixels, dtype=jnp.uint32)
     R = pix.shape[0]

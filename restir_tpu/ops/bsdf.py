@@ -2,7 +2,7 @@
 
 Functional port of /root/reference/src/material.h:34-256 with the CUDA
 switch-dispatch replaced by masked vector selects (all three lobes are
-cheap; evaluating all and selecting is the TPU-idiomatic form of the
+cheap; evaluating all and selecting is the array-program form of the
 material switch).
 
 Material parameters arrive as per-ray SoA (already gathered/textured),

@@ -1,11 +1,11 @@
 """Ray intersection ops: triangle, AABB, and stackless MTBVH traversal.
 
-TPU-native re-design of the reference's per-thread traversal loops
+Array-program form of the reference's per-thread traversal loops
 (/root/reference/src/scene.h:245-316, intersections.h:17-54): instead of
 one divergent SIMT loop per pixel, ALL rays advance in lockstep through a
 single `lax.while_loop` whose state is a vector of per-ray node cursors.
-Each step performs batched gathers of node/box/triangle data (VPU-friendly)
-and masked updates; rays that finish park at `node == size` and become
+Each step performs batched gathers of node/box/triangle data and masked
+updates; rays that finish park at `node == size` and become
 no-ops. The loop ends when every ray has finished, so the trip count is
 the max traversal length over the batch rather than the sum.
 
@@ -70,9 +70,9 @@ def intersect_aabb(o, d, lo, hi):
     """Robust vectorized slab test. Returns (hit, t_near).
 
     Replaces the reference's manually unrolled branch ladder
-    (bvh.h:85-157) — branches are SIMT currency; on the VPU a pure
-    min/max slab test is the fast path. t_near may be negative when the
-    origin is inside the box (same contract as the reference).
+    (bvh.h:85-157) with a branch-free min/max slab test over the batch.
+    t_near may be negative when the origin is inside the box (same
+    contract as the reference).
     """
     tiny = 1e-12
     d_safe = jnp.where(jnp.abs(d) < tiny, jnp.where(d < 0, -tiny, tiny), d)
@@ -97,7 +97,7 @@ class TraversalArrays(NamedTuple):
     miss_flat: jnp.ndarray  # [6*B] int32
     size: int  # B (static)
     method: str = "bvh"  # "bvh" | "brute" (static)
-    tri_xform: jnp.ndarray = None  # [4, 3N] MXU brute-force transforms
+    tri_xform: jnp.ndarray = None  # [4, 3N] brute-force transforms
 
 
 def _traversal_setup(trv: TraversalArrays, d):
@@ -108,21 +108,11 @@ def _traversal_setup(trv: TraversalArrays, d):
     return base
 
 
-def _on_tpu() -> bool:
-    return jax.devices()[0].platform == "tpu"
-
-
 def intersect_closest(trv: TraversalArrays, o, d, active=None) -> Hit:
-    """Closest hit, dispatching on the (static) intersector method.
-
-    "brute" uses the Pallas kernel on TPU (VMEM-resident tiles) and the
-    XLA chunked version elsewhere; "bvh" is the lockstep gather walk.
-    """
+    """Closest hit, dispatching on the (static) intersector method:
+    "brute" is the chunked brute-force test (ops/intersect_bf.py),
+    "bvh" the lockstep MTBVH walk."""
     if trv.method == "brute":
-        if _on_tpu():
-            from .pallas.intersect_kernel import intersect_closest_pallas
-
-            return intersect_closest_pallas(trv.tri_xform, o, d, active=active)
         from .intersect_bf import intersect_closest_bf
 
         return intersect_closest_bf(trv.tri_xform, o, d, active=active)
@@ -132,10 +122,6 @@ def intersect_closest(trv: TraversalArrays, o, d, active=None) -> Hit:
 def test_occlusion(trv: TraversalArrays, x, y, active=None) -> jnp.ndarray:
     """Any-hit between x and y, dispatching on the intersector method."""
     if trv.method == "brute":
-        if _on_tpu():
-            from .pallas.intersect_kernel import test_occlusion_pallas
-
-            return test_occlusion_pallas(trv.tri_xform, x, y, active=active)
         from .intersect_bf import test_occlusion_bf
 
         return test_occlusion_bf(trv.tri_xform, x, y, active=active)
@@ -146,8 +132,7 @@ def intersect_closest_bvh(trv: TraversalArrays, o, d, active=None) -> Hit:
     """Closest-hit over all rays — scene.h:245-284 in lockstep form.
 
     `active`: optional bool[R]; inactive rays skip traversal entirely
-    (their cursor starts parked at `size`), which is how masked-out
-    wavefront lanes stay free on TPU.
+    (their cursor starts parked at `size`).
     """
     R = o.shape[0]
     size = trv.size

@@ -1,26 +1,24 @@
-"""MXU brute-force ray-triangle intersector.
+"""Brute-force ray-triangle intersector.
 
-THE key TPU-native design decision of this framework. The reference's
-per-thread stackless MTBVH walk (scene.h:245-316) maps terribly onto
-TPU: a lockstep `lax.while_loop` of incoherent [R]-sized HBM gathers is
-bandwidth-bound (~GBs of gather traffic per frame). The MXU inverts the
-trade: transform every triangle ONCE (host-side) into a unit-triangle
-space via a 3x4 affine matrix; a ray-triangle test then becomes
+Instead of the reference's per-thread stackless MTBVH walk
+(scene.h:245-316), which as an array program becomes a lockstep
+`lax.while_loop` of incoherent [R]-sized gathers, every triangle is
+transformed ONCE (host-side) into a unit-triangle space via a 3x4 affine
+matrix; a ray-triangle test then becomes
 
     oo = A @ [o; 1]      dd = A[:, :3] @ d
     t  = -oo.z / dd.z    u = oo.x + t dd.x    v = oo.y + t dd.y
     hit = (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
 
-so testing ALL rays against ALL triangles is two matmuls
-[R, 4] @ [4, 3N] — exactly what the 128x128 systolic array is built for
-— followed by a cheap elementwise mask + min-reduction. For the scene
-sizes this renderer targets (10^2..10^4 tris) this is orders of
-magnitude faster than the gather walk; the BVH path remains for larger
-scenes (`RenderConfig.intersector`).
+so testing ALL rays against ALL triangles is two products
+[R, 4] @ [4, 3N] followed by an elementwise mask + min-reduction. Up to
+`scene_data.BRUTE_FORCE_MAX_PRIMS` triangles this path is taken; the BVH
+walk remains for larger scenes (`RenderConfig.intersector`).
 
-Rays are processed in static chunks (lax.scan) to bound the [Rb, 3N]
-intermediate, keeping it VMEM-resident instead of spilling R x 3N to
-HBM.
+Rays are processed in static chunks of 8,192 (lax.scan) to bound the
+[chunk, 3N] intermediates. Neither the chunk size nor whether XLA keeps
+those intermediates out of device memory has been measured on the H100
+yet (ROADMAP Speed 3).
 
 The (u, v) barycentrics here weight (v1, v2) — same convention as
 ops/intersect.intersect_triangle and the reference (intersections.h:42).
@@ -29,7 +27,6 @@ ops/intersect.intersect_triangle and the reference (intersections.h:42).
 from __future__ import annotations
 
 from functools import partial
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -73,7 +70,7 @@ def _chunk_hits(xform, oo_h, dd_h):
     """One ray-chunk: matmuls + hit test. Returns (dist, prim, bary)."""
     n3 = xform.shape[1]
     n = n3 // 3
-    # [Rb, 4] @ [4, 3N] — MXU work. HIGHEST precision: f32 accumulate
+    # [Rb, 4] @ [4, 3N]. HIGHEST precision: full f32, never TF32/bf16
     # (ray hit distances are geometry, not statistics).
     oo = jnp.dot(oo_h, xform, precision=jax.lax.Precision.HIGHEST)
     dd = jnp.dot(dd_h, xform, precision=jax.lax.Precision.HIGHEST)
@@ -116,10 +113,6 @@ def _pad_chunks(o, d, chunk: int):
 def intersect_closest_bf(xform, o, d, active=None, chunk: int = 8192) -> Hit:
     """Closest hit over all triangles, chunked over rays."""
     r = o.shape[0]
-    if active is not None:
-        # park inactive rays on a degenerate direction (still cheap: the
-        # matmul runs anyway; masking keeps their results NULL)
-        pass
     o_, d_, c, pad = _pad_chunks(o, d, chunk)
     ones = jnp.ones((chunk, 1))
     zeros = jnp.zeros((chunk, 1))

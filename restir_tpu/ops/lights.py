@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from ..scene.alias_table import sample_alias
@@ -25,6 +26,16 @@ from .texture import env_sample_bilinear
 INVALID_PDF = -1.0
 # distance carried by env-map samples (vis rays become "until any hit")
 ENV_DIST = 1.0e8
+
+
+def _dot_t(phi, psi):
+    """phi @ psi.T in full f32. These products are geometry: the signs
+    of n.(c - x), n_l.(x - c) and n.d_tile decide which lights get a
+    non-zero selection probability (a wrong sign there is bias, not
+    noise), and |c - x|^2 is expanded as |c|^2 - 2c.x + |x|^2, which
+    cancels. A GPU may otherwise run an f32 dot in TF32 (~3 decimal
+    digits). The contraction is 3-5 deep, so full precision is cheap."""
+    return jnp.dot(phi, psi.T, precision=jax.lax.Precision.HIGHEST)
 
 
 class LightSample(NamedTuple):
@@ -130,7 +141,7 @@ def sample_light_cdf(
     single_sided: bool = True,
     has_env: bool = False,
 ) -> LightSample:
-    """TPU-native light selection: exact per-pixel CDF over ALL lights.
+    """Light selection from the exact per-pixel CDF over ALL lights.
 
     Replaces the reference's 32x power-proportional RIS candidates
     (restir.cu:156-169) with ONE draw from the per-pixel target
@@ -140,14 +151,13 @@ def sample_light_cdf(
 
     evaluated for every light at its centroid c_l. Every dot product is
     bilinear in per-pixel and per-light features, so the whole [R, L]
-    target matrix is three small matmuls on the MXU — no gathers, no
+    target matrix is three small matrix products — no gathers, no
     candidate loop. The returned pdf is EXACT (selection probability x
     uniform-area point pdf in solid angle), so estimators stay unbiased;
     the centroid approximation only shapes the selection quality.
 
     One [R] gather fetches the chosen light's geometry (vs 32 per pixel
-    in the reference's loop). This is the TPU answer to the GPU's
-    L1-cached random table reads.
+    in the reference's loop).
     """
     L = scene.light_verts.shape[0]
 
@@ -156,7 +166,7 @@ def sample_light_cdf(
     psi_a = jnp.concatenate(
         [scene.light_center, jnp.ones((L, 1))], axis=-1
     )  # [L,4]
-    a = phi_a @ psi_a.T  # [R, L] = n.(c_l - x)
+    a = _dot_t(phi_a, psi_a)  # [R, L] = n.(c_l - x)
 
     phi_b = jnp.concatenate([pos, jnp.ones_like(n_dot_x[..., None])], axis=-1)
     psi_b = jnp.concatenate(
@@ -164,7 +174,7 @@ def sample_light_cdf(
          -jnp.sum(scene.light_normal * scene.light_center, -1, keepdims=True)],
         axis=-1,
     )
-    b = phi_b @ psi_b.T  # [R, L] = n_l.(x - c_l)
+    b = _dot_t(phi_b, psi_b)  # [R, L] = n_l.(x - c_l)
 
     x2 = jnp.sum(pos * pos, axis=-1)
     phi_c = jnp.concatenate(
@@ -174,7 +184,7 @@ def sample_light_cdf(
     psi_c = jnp.concatenate(
         [scene.light_center, c2[..., None], jnp.ones((L, 1))], axis=-1
     )
-    d2 = jnp.maximum(phi_c @ psi_c.T, 1e-8)  # [R, L] = |c_l - x|^2
+    d2 = jnp.maximum(_dot_t(phi_c, psi_c), 1e-8)  # [R, L] = |c_l - x|^2
 
     lum_area = mathx.luminance(scene.light_radiance) * scene.light_area  # [L]
     side = b > 0.0 if single_sided else jnp.abs(b) > 0.0
@@ -198,12 +208,10 @@ def sample_light_cdf(
     if has_env:
         # env tile grid joins the CDF as extra rows ("virtual lights"):
         # target T = lum(rad_tile) * sa_tile * relu-ish(n . d_tile).
-        # The fused kernel mirrors this bit-for-bit via extra psi rows
-        # (ops/pallas/fused_di._ris_select_kernel).
         d_t = mathx.to_sphere(
             scene.env_tile_uv[:, 0:2] + 0.5 * scene.env_tile_uv[:, 2:4]
         )  # [ET, 3] tile-center directions
-        a_env = norm @ d_t.T  # [R, ET]
+        a_env = _dot_t(norm, d_t)  # [R, ET]
         # angular half-extent of the tile (horizon tolerance)
         ang = 0.5 * jnp.sqrt(
             (mathx.PI * scene.env_tile_uv[:, 3]) ** 2
@@ -277,9 +285,9 @@ _NEE_CHUNK = 65536
 
 
 def _sample_nv_chunked(scene, pos, r1, r2, r3, r4, has_env, single_sided):
-    """Ray-chunked wrapper: XLA expands the [R]-indexed light-table
-    gathers into one-hot matmuls whose padded temporaries are GBs at
-    full-frame R; lax.map over chunks bounds them."""
+    """Ray-chunked wrapper: lax.map over _NEE_CHUNK rays bounds the
+    temporaries of the [R]-indexed light-table gathers. The chunk size
+    is not yet measured on the H100."""
     import jax
 
     r = pos.shape[0]

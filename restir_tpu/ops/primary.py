@@ -1,26 +1,17 @@
 """Primary-hit assembly: intersection + interaction + textured material.
 
-Single entry point used by the G-buffer and by secondary bounces. On TPU
-with the brute-force intersector it runs the fused Pallas primary kernel
-(closest hit + attribute interpolation + material-row fetch, all one-hot
-matmuls in VMEM); elsewhere it composes the XLA pieces. The fused path
-matters because XLA lowers [R]-indexed gathers from small tables into
-full [R, N] one-hot matmuls in HBM — multiple GB of temps per frame at
-1080p.
+Single entry point used by the G-buffer and by secondary bounces.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
-import jax.numpy as jnp
-
-from ..scene.scene_data import PROCEDURAL_TEXTURE, SceneData
-from ..utils import math as mathx
+from ..scene.scene_data import SceneData
 from . import intersect as ix
 from . import surface as surf
 from .bsdf import SurfaceMaterial
-from .texture import NULL_TEXTURE, bilinear_sample, fetch_textured_material, procedural_texture
+from .texture import fetch_textured_material
 
 
 def trace_primary(
@@ -31,64 +22,6 @@ def trace_primary(
     active=None,
 ) -> Tuple[surf.Interaction, SurfaceMaterial, ix.Hit]:
     """Closest hit + interaction + textured material for a ray batch."""
-    if trv.method == "brute" and ix._on_tpu():
-        from .pallas.intersect_kernel import primary_hit_pallas
-
-        prim, dist, bary, pos, norm, uv, matp = primary_hit_pallas(
-            trv.tri_xform, scene.prim_attr, scene.mat_attr, o, d
-        )
-        if active is not None:
-            prim = jnp.where(active, prim, ix.NULL_PRIMITIVE)
-            dist = jnp.where(active, dist, jnp.inf)
-        valid = prim != ix.NULL_PRIMITIVE
-        mat_id = matp[:, 11].astype(jnp.int32)
-        it = surf.Interaction(
-            valid=valid, prim_id=prim, mat_id=mat_id, pos=pos, norm=norm,
-            uv=uv,
-        )
-        base_color = matp[:, 1:4]
-        base_map = matp[:, 7].astype(jnp.int32)
-        proc = procedural_texture(uv)
-        base_color = jnp.where(
-            (base_map == PROCEDURAL_TEXTURE)[..., None], proc, base_color
-        )
-        metallic = matp[:, 4]
-        roughness = matp[:, 5]
-        if with_textures:
-            def tex(map_id, fallback):
-                tid = jnp.maximum(map_id, 0)
-                sampled = bilinear_sample(
-                    scene.tex_data, scene.tex_offset[tid],
-                    scene.tex_width[tid], scene.tex_height[tid], uv,
-                )
-                return jnp.where(
-                    (map_id > NULL_TEXTURE)[..., None], sampled, fallback
-                )
-
-            base_color = tex(base_map, base_color)
-            metallic = tex(
-                matp[:, 8].astype(jnp.int32), metallic[..., None] * jnp.ones(3)
-            )[..., 0]
-            roughness = tex(
-                matp[:, 9].astype(jnp.int32), roughness[..., None] * jnp.ones(3)
-            )[..., 0]
-            normal_map = matp[:, 10].astype(jnp.int32)
-            mapped = tex(normal_map, jnp.zeros_like(base_color))
-            local_norm = mathx.safe_normalize(mapped - 0.5)
-            remapped = mathx.local_to_world(norm, local_norm)
-            norm = jnp.where((normal_map > NULL_TEXTURE)[..., None], remapped, norm)
-            it = it._replace(norm=norm)
-
-        mat = SurfaceMaterial(
-            type=matp[:, 0].astype(jnp.int32),
-            base_color=base_color,
-            metallic=metallic,
-            roughness=roughness,
-            ior=matp[:, 6],
-        )
-        hit = ix.Hit(prim_id=prim, dist=dist, bary=bary)
-        return it, mat, hit
-
     hit = ix.intersect_closest(trv, o, d, active=active)
     it = surf.make_interaction(scene, hit)
     mat, mapped_norm = fetch_textured_material(

@@ -1,6 +1,6 @@
 """Weighted-reservoir resampling (WRS) over SoA pixel batches.
 
-TPU-native counterpart of the reference's per-thread `Reservoir<T>`
+Array-program counterpart of the reference's per-thread `Reservoir<T>`
 template (/root/reference/src/restir.h:29-126). A reservoir is a pytree
 whose leaves are `[R]`-shaped arrays: the sample payload (any pytree of
 arrays with leading dim R), the cumulative weight, and the sample count
@@ -168,12 +168,8 @@ def pack_channels(tree):
     """Flatten a pytree of [R] / [R, k] arrays into one CHANNEL-MAJOR
     [C, R] float32 matrix.
 
-    Layout rationale (TPU): [R, C] with small C would be tile-padded
-    C -> 128 in HBM (a 14-channel pack costs 128/14 ~ 9x memory and
-    every roll/gather copies the padded form — GBs per frame at 1080p).
-    Channel-major keeps the large dim minor, so buffers stay unpadded
-    and a neighbor fetch is one gather / one dynamic slice over all
-    channels at once."""
+    Channel-major keeps the large pixel dim minor, so a neighbor fetch
+    is one gather / one dynamic slice over all channels at once."""
     leaves = jax.tree.leaves(tree)
     rows = []
     for leaf in leaves:

@@ -4,7 +4,7 @@ Mirrors the reference's device texture objects
 (/root/reference/src/image.h:40-93) and DevScene material texturing
 (scene.h:68-99). All textures live in one packed [K,3] array with
 per-texture (offset, width, height), so a per-ray texture id becomes
-part of the gather index — the TPU equivalent of the reference's
+part of the gather index — the counterpart of the reference's
 `textureData` big-buffer upload (scene.cpp:435-457).
 """
 

@@ -4,7 +4,3 @@ from .sharding import (  # noqa: F401
     shard_scene,
     shard_state,
 )
-from .fused_sharding import (  # noqa: F401
-    make_fused_sharded_step,
-    shard_fused_state,
-)

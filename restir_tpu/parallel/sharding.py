@@ -1,10 +1,10 @@
-"""Multi-chip scaling: shard the pixel grid over a device mesh.
+"""Multi-device scaling: shard the pixel grid over a device mesh.
 
 This is NEW capability relative to the reference (strictly single-GPU,
 SURVEY.md §2 parallelism checklist): the renderer state is a pytree of
 `[R, ...]` pixel buffers with R = H*W in row-major order, so sharding
 axis 0 over a 1-D `Mesh` partitions the image into contiguous row bands,
-one per chip. The scene (geometry, BVH, materials, lights) is replicated
+one per device. The scene (geometry, BVH, materials, lights) is replicated
 — it is read-only and every ray needs all of it.
 
 Communication analysis (why this layout):
@@ -13,21 +13,18 @@ Communication analysis (why this layout):
   band-local, fast motion crosses bands — XLA inserts the collective
   gather automatically.
 - Spatial reuse: <= radius-5 disk gathers — a halo of 5 rows between
-  neighboring chips, which XLA lowers to cheap ICI collective-permutes.
+  neighboring devices, which XLA lowers to collective-permutes (NCCL
+  on GPUs).
 - Denoiser stencils: static shifts, same halo structure (up to 2*16 rows
   at the deepest a-trous level).
 
 Everything rides `jax.jit` + `NamedSharding`: we annotate data layout
-and let XLA place the collectives (the scaling-book recipe), rather than
-hand-rolling NCCL-style exchanges like a CUDA port would.
+and let XLA place the collectives rather than hand-rolling exchanges.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -85,7 +82,7 @@ def make_sharded_step(cfg: RenderConfig, mesh: Mesh, template_state: RenderState
     state_sh = _state_shardings(template_state, mesh, cfg.num_pixels)
     pix = _pixel_sharded(mesh)
     # The state is DONATED: its sharded buffers are reused for the next
-    # state, halving per-chip HBM residency. This is safe because
+    # state, halving per-device memory residency. This is safe because
     # init_state copies the camera leaves, so `state.last_camera` never
     # aliases the caller's `cam` argument buffers.
     return jax.jit(

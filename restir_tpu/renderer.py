@@ -1,6 +1,6 @@
 """Frame orchestration: render state pytree + the jitted frame step.
 
-TPU re-design of the reference's frame loop (main.cpp:146-185 `runCuda`):
+Re-design of the reference's frame loop (main.cpp:146-185 `runCuda`):
 all mutable per-frame GPU buffers (illum accumulators, reservoir
 ping-pongs, G-buffer history, RNG epoch) become ONE immutable pytree,
 and a frame is a pure function
@@ -25,13 +25,12 @@ import numpy as np
 from .config import DenoiserType, RenderConfig, TracerType
 from .models import denoiser as dn
 from .models import gbuffer as gbuf
-from .models import restir_di, restir_di_fused, restir_gi
+from .models import restir_di, restir_gi
 from .models.path_tracer import bvh_heatmap, pt_direct, pt_indirect, pt_trace
 from .ops import reservoir as rsv
 from .ops.camera import Camera
 from .ops.tonemap import to_uint8, tonemap
 from .scene.scene_data import SceneData
-from .utils import rng as rngmod
 
 
 class RenderState(NamedTuple):
@@ -46,57 +45,26 @@ class RenderState(NamedTuple):
     denoiser: dn.SVGFState  # SVGF temporal accumulation state
 
 
-_warned_fallback: set = set()
-
-
-def init_state(cfg: RenderConfig, cam: Camera, scene: Optional[SceneData] = None):
-    """Render state for the config. When `scene` is given and the fused
-    channel-major TPU pipeline applies (models/restir_di_fused.eligible),
-    returns its packed FusedDIState instead of the general RenderState.
-
-    Host-side guards (both need `scene`): raises if cfg's static
-    scene_has_* flags would compile out a BSDF chain the scene uses
-    (config.validate_mat_flags); warns ONCE per config when a ReSTIR
-    tracer falls off the fused path onto the ~6x slower general
-    pipeline, naming the gate that failed."""
+def init_state(cfg: RenderConfig, cam: Camera,
+               scene: Optional[SceneData] = None) -> RenderState:
+    """Render state for the config. When `scene` is given, raises if
+    cfg's static scene_has_* flags would compile out a BSDF chain the
+    scene uses (config.validate_mat_flags)."""
     if scene is not None:
         from .config import validate_mat_flags
 
         validate_mat_flags(cfg, scene)
-        if restir_di_fused.eligible(scene, cfg):
-            return restir_di_fused.init_state(cfg, cam)
-        reason = restir_di_fused.ineligibility_reason(scene, cfg)
-        if reason is not None and cfg not in _warned_fallback:
-            _warned_fallback.add(cfg)
-            import warnings
-
-            warnings.warn(
-                "restir_tpu: falling back to the general (slower) "
-                f"pipeline — {reason}", stacklevel=2)
     r = cfg.num_pixels
     # copy the camera leaves: the state is donated by step_jit, so it
     # must not alias the caller's camera buffers
     cam = jax.tree.map(lambda x: jnp.array(x, copy=True), cam)
-    # the fully fused GI pipeline carries its reservoir as a channel-
-    # major pack; the leaf TYPE is the static dispatch in restir_indirect
-    from .ops.intersect import _on_tpu
-
-    if (
-        cfg.tracer == TracerType.RESTIR_GI
-        and scene is not None
-        and _on_tpu()
-        and restir_gi.gi_resolve_fused_eligible(scene, cfg, r)
-    ):
-        gi_res = restir_gi.init_gi_resolve_pack(r)
-    else:
-        gi_res = rsv.zeros_indirect(r)
     return RenderState(
         looper=jnp.uint32(0),
         iteration=jnp.int32(0),
         direct_illum=jnp.zeros((r, 3)),
         indirect_illum=jnp.zeros((r, 3)),
         dir_reservoir=rsv.zeros_direct(r),
-        gi_reservoir=gi_res,
+        gi_reservoir=rsv.zeros_indirect(r),
         gbuffer=gbuf.empty_gbuffer(r),
         last_camera=cam,
         denoiser=dn.init_svgf_state(r),
@@ -110,11 +78,9 @@ def reset_iteration(state) -> RenderState:
     return state._replace(iteration=jnp.int32(0))
 
 
-def reset_accumulation(state):
+def reset_accumulation(state: RenderState) -> RenderState:
     """Camera-change reset (main.cpp:155-162): restart averaging and
     temporal history, keep the RNG epoch monotonic."""
-    if isinstance(state, restir_di_fused.FusedDIState):
-        return restir_di_fused.reset_accumulation(state)
     return state._replace(
         iteration=jnp.int32(0),
         direct_illum=jnp.zeros_like(state.direct_illum),
@@ -222,23 +188,15 @@ def step(
     return next_state, frame
 
 
-# RESTIR_GI frames split into two compiled programs above this pixel
-# count (one fused program's temporaries exceed single-chip HBM)
+# RESTIR_GI frames split into two compiled programs at or above this
+# pixel count, and the GI program runs in row bands of at most this many
+# pixels. Both bound peak device memory, a limit set for the earlier
+# accelerator; what they cost on the H100 is open (ROADMAP Speed 4).
 _SPLIT_GI_MIN_PIXELS = 512 * 512
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",), donate_argnums=(1,))
 def _step_jit_donated(scene, state, cam, cfg: RenderConfig):
-    return step(scene, state, cam, cfg)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg",), donate_argnums=(1,))
-def _step_fused_jit(scene, state, cam, cfg: RenderConfig):
-    return restir_di_fused.step_fused(scene, state, cam, cfg)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg",))
-def _step_jit_plain(scene, state, cam, cfg: RenderConfig):
     return step(scene, state, cam, cfg)
 
 
@@ -249,32 +207,38 @@ def _denoise_jit(frame, gb, last_gb, den_state, cam, cfg: RenderConfig):
     return dn.svgf_filter(frame, gb, last_gb, den_state, cam, cfg)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg",), donate_argnums=(2, 3))
+def _gi_bands(num_pixels: int) -> int:
+    """Row bands of the split GI program: the fewest of (2, 4, 6, 8)
+    that divides the frame into bands of <= _SPLIT_GI_MIN_PIXELS."""
+    if num_pixels <= _SPLIT_GI_MIN_PIXELS:
+        return 1
+    for bands in (2, 4, 6, 8):
+        if num_pixels % bands == 0 and num_pixels // bands <= _SPLIT_GI_MIN_PIXELS:
+            return bands
+    return 1
+
+
+@functools.partial(jax.jit, static_argnames=("cfg", "bands"),
+                   donate_argnums=(2, 3))
 def _gi_jit(scene, gb, gi_res_in, indirect_illum, last_prim, last_norm,
-            last_depth, cam, looper, iteration, cfg: RenderConfig):
+            last_depth, cam, looper, iteration, cfg: RenderConfig,
+            bands: int = 1):
     """Standalone ReSTIR GI program (second half of the split RESTIR_GI
     step): re-runs the G-buffer primary pass (identical inputs => the
     SAME interaction/material/validity as program 1, including the
     single-sided light remap) and runs the indirect reservoir pipeline.
     """
-    gb2, it, mat, d = gbuf.render_gbuffer(scene, cam, cam, cfg, looper)
+    _, it, mat, d = gbuf.render_gbuffer(scene, cam, cam, cfg, looper)
 
     last_gb = gb._replace(prim_id=last_prim, norm=last_norm, depth=last_depth)
 
-    # Band-split the GI pipeline: the program's whole-frame padded temps
-    # exceed HBM at 1080p (round-1's "compile-helper crash" was an OOM
-    # by ~0.5 GB). GI is per-pixel independent except the temporal
-    # motion gather, which reads the FULL previous-frame reservoir —
-    # so each band closes over the full res_in/last_gb and lax.map
-    # bounds peak liveness to one band. Global pixel indices keep the
-    # RNG streams identical to a whole-frame render.
+    # Band-split the GI pipeline to bound peak liveness to one band
+    # (see _gi_bands). GI is per-pixel independent except the temporal
+    # motion gather, which reads the FULL previous-frame reservoir — so
+    # each band closes over the full res_in/last_gb. Global pixel
+    # indices keep the RNG streams identical to a whole-frame render.
     r = cfg.num_pixels
-    bands = 1
-    if not isinstance(gi_res_in, jnp.ndarray):  # fused pack: no bands
-        for cand in (8, 6, 4, 2):
-            if r % cand == 0 and r // cand <= 512 * 512:
-                bands = cand
-    if bands == 1 or r <= 512 * 512:
+    if bands == 1:
         ind, gi_res = restir_gi.restir_indirect(
             scene, gb, last_gb, it, mat, d, gi_res_in, cfg, looper
         )
@@ -308,25 +272,27 @@ def _gi_jit(scene, gb, gi_res_in, indirect_illum, last_prim, last_norm,
     return indirect, gi_res
 
 
+def _split_gi(cfg: RenderConfig) -> bool:
+    return (
+        cfg.tracer == TracerType.RESTIR_GI
+        and cfg.num_pixels >= _SPLIT_GI_MIN_PIXELS
+    )
+
+
 def step_jit(scene, state, cam, cfg: RenderConfig):
     """The jitted frame step.
 
     Without a denoiser the state is DONATED (its buffers are reused for
-    the next state, halving renderer HBM residency) — keep a checkpoint
-    (save_checkpoint) if the previous state is needed.
+    the next state, halving the renderer's device-memory residency) —
+    keep a checkpoint (save_checkpoint) if the previous state is needed.
 
     With a denoiser the frame is split into TWO compiled programs
-    (integrate | denoise): each program's temporaries live in its own
-    arena, which keeps 1080p under the single-chip HBM budget — one
-    fused program's peak-liveness exceeds it.
+    (integrate | denoise), each with its own temporaries, to bound peak
+    device memory; what the split costs on the H100 is open (ROADMAP
+    Speed 5). RESTIR_GI at or above _SPLIT_GI_MIN_PIXELS splits likewise
+    (integrate DI | GI).
     """
-    if isinstance(state, restir_di_fused.FusedDIState):
-        return _step_fused_jit(scene, state, cam, cfg)
-
-    split_gi = (
-        cfg.tracer == TracerType.RESTIR_GI
-        and cfg.num_pixels >= _SPLIT_GI_MIN_PIXELS
-    )
+    split_gi = _split_gi(cfg)
     if cfg.denoiser == DenoiserType.NONE and not split_gi:
         return _step_jit_donated(scene, state, cam, cfg)
 
@@ -339,8 +305,7 @@ def step_jit(scene, state, cam, cfg: RenderConfig):
 
     core_cfg = cfg.replace(denoiser=DenoiserType.NONE)
     if split_gi:
-        # program 1: G-buffer + ReSTIR DI; program 2: ReSTIR GI — their
-        # temporaries would not fit HBM in one fused program at >= 1080p.
+        # program 1: G-buffer + ReSTIR DI; program 2: ReSTIR GI.
         # gi_reservoir/indirect_illum pass through program 1 untouched
         # (donated input aliased to output), so program 2 can donate the
         # returned leaves directly.
@@ -350,6 +315,7 @@ def step_jit(scene, state, cam, cfg: RenderConfig):
             scene, next_state.gbuffer, next_state.gi_reservoir,
             next_state.indirect_illum, last_prim, last_norm, last_depth,
             cam, looper0, iteration0, cfg.replace(denoiser=DenoiserType.NONE),
+            bands=_gi_bands(cfg.num_pixels),
         )
         next_state = next_state._replace(
             indirect_illum=indirect, gi_reservoir=gi_res
@@ -377,17 +343,32 @@ def step_jit(scene, state, cam, cfg: RenderConfig):
     return next_state._replace(denoiser=den_state), frame
 
 
-def frame_to_image(frame: jnp.ndarray, cfg: RenderConfig) -> jnp.ndarray:
-    """Tonemap + quantize to uint8 [H, W, 3] — sendImageToPBO
-    (pathtrace.cu:30-106) / saveImage (main.cpp:105-144).
+def step_programs(scene, state: RenderState, cam, cfg: RenderConfig) -> dict:
+    """The compiled programs step_jit dispatches for `cfg`, by name
+    ("step", and "gi" / "denoise" where the frame is split), e.g. for
+    `memory_analysis()`. Lowering runs and donates nothing."""
+    core_cfg = cfg.replace(denoiser=DenoiserType.NONE)
+    if _split_gi(cfg):
+        core_cfg = core_cfg.replace(tracer=TracerType.RESTIR_DI)
+    gb = state.gbuffer
+    progs = {"step": _step_jit_donated.lower(scene, state, cam, core_cfg)}
+    if _split_gi(cfg):
+        progs["gi"] = _gi_jit.lower(
+            scene, gb, state.gi_reservoir, state.indirect_illum, gb.prim_id,
+            gb.norm, gb.depth, cam, state.looper, state.iteration,
+            cfg.replace(denoiser=DenoiserType.NONE),
+            bands=_gi_bands(cfg.num_pixels),
+        )
+    if cfg.denoiser != DenoiserType.NONE:
+        progs["denoise"] = _denoise_jit.lower(
+            state.direct_illum, gb, gb, state.denoiser, cam, cfg
+        )
+    return {name: low.compile() for name, low in progs.items()}
 
-    Accepts both layouts: [R, 3] (general path) and channel-major
-    [3, R/128, 128] (fused path); tonemap/quantize run in the native
-    layout and only the final uint8 image is transposed."""
-    if frame.ndim == 3:  # [3, g, 128] channel-major
-        mapped = tonemap(frame, cfg.tone_mapping)
-        img = to_uint8(mapped).reshape(3, cfg.height, cfg.width)
-        return jnp.transpose(img, (1, 2, 0))
+
+def frame_to_image(frame: jnp.ndarray, cfg: RenderConfig) -> jnp.ndarray:
+    """Tonemap + quantize an [R, 3] frame to uint8 [H, W, 3] —
+    sendImageToPBO (pathtrace.cu:30-106) / saveImage (main.cpp:105-144)."""
     mapped = tonemap(frame, cfg.tone_mapping)
     return to_uint8(mapped).reshape(cfg.height, cfg.width, 3)
 

@@ -227,13 +227,11 @@ def env_scene(
 def textured_scene(seed: int = 5, bvh_impl: str = "auto",
                    aux_maps: bool = False):
     """Closed room with base-color-textured floor/wall, a procedural-
-    textured block, and two area lights. Textures are <= 128 px wide so
-    the fused mip-clamped atlas stores them exactly (bit-comparable to
-    the general path's bilinear fetch).
+    textured block, and two area lights (64-128 px textures).
 
     `aux_maps` adds a metallic-workflow ceiling with metallic +
     roughness maps and a normal-mapped right wall (scene.h:86-97
-    coverage for the fused-path parity tests)."""
+    coverage)."""
     rng = np.random.default_rng(seed)
     E, H = 6.0, 5.0
 

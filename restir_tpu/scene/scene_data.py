@@ -1,6 +1,6 @@
 """Frozen SoA scene pytree and its host-side build pipeline.
 
-TPU analogue of the reference's DevScene upload
+Counterpart of the reference's DevScene upload
 (/root/reference/src/scene.cpp:159-215, 435-509): instances are
 pre-transformed to a world-space triangle soup, emissive triangles become
 the light list with power = luminance * 2pi * area, alias tables are
@@ -27,7 +27,6 @@ from typing import NamedTuple, Optional, Sequence
 import jax.numpy as jnp
 import numpy as np
 
-from ..utils import math as mathx
 from .alias_table import build_alias_table
 from .bvh import build_bvh
 
@@ -86,20 +85,8 @@ class SceneData(NamedTuple):
     bvh_prim: jnp.ndarray  # [6B] int32
     bvh_box: jnp.ndarray  # [6B] int32
     bvh_miss: jnp.ndarray  # [6B] int32
-    # MXU brute-force intersector: per-tri affine transforms [4, 3N]
+    # brute-force intersector: per-tri affine transforms [4, 3N]
     tri_xform: jnp.ndarray
-    # packed rows for the fused primary-hit pallas kernel
-    prim_attr: jnp.ndarray  # [N, ATTR_COLS]
-    mat_attr: jnp.ndarray  # [M, MAT_COLS]
-    # Morton-ordered cluster AABBs ([K, 3]; K = ceil(N / CLUSTER_SIZE)):
-    # triangles are spatially sorted so that each CLUSTER_SIZE-block is
-    # compact; kernels cull whole clusters per ray tile
-    cluster_lo: jnp.ndarray
-    cluster_hi: jnp.ndarray
-    # 32-tri sub-block AABBs ([K * 4, 3]): shadow-vis work-list
-    # granularity (empty boxes +/-inf for fully-padded blocks)
-    sub_lo: jnp.ndarray
-    sub_hi: jnp.ndarray
     # materials, [M]
     mat_type: jnp.ndarray  # [M] int32
     mat_base_color: jnp.ndarray  # [M, 3]
@@ -113,7 +100,7 @@ class SceneData(NamedTuple):
     # lights, [L] emissive prims; alias table over [L (+1 env)] entries
     light_prim_ids: jnp.ndarray  # [L] int32
     light_radiance: jnp.ndarray  # [L, 3]
-    # packed light geometry for the MXU CDF sampler (ops/lights.py)
+    # packed light geometry for the CDF sampler (ops/lights.py)
     light_verts: jnp.ndarray  # [L, 3, 3]
     light_normal: jnp.ndarray  # [L, 3] (area-weighted triangle normal)
     light_area: jnp.ndarray  # [L]
@@ -126,11 +113,11 @@ class SceneData(NamedTuple):
     env_map: jnp.ndarray  # [Eh, Ew, 3]
     env_prob: jnp.ndarray  # [Eh*Ew]
     env_alias: jnp.ndarray  # [Eh*Ew] int32
-    # env tile grid for the fused CDF candidate stage (ENV_TILE_H x
+    # env tile grid for the CDF candidate stage (ENV_TILE_H x
     # ENV_TILE_W solid-angle-weighted downsample; [1,...] dummies when
     # absent): each tile is a "virtual light" row in the per-pixel
-    # product CDF — the TPU-native answer to the reference's per-texel
-    # alias table (scene.h:358-392)
+    # product CDF, in place of the reference's per-texel alias table
+    # (scene.h:358-392)
     env_tile_rad: jnp.ndarray  # [ET, 3] sa-weighted mean radiance
     env_tile_uv: jnp.ndarray  # [ET, 4] (u0, v0, du, dv)
     env_tile_sa: jnp.ndarray  # [ET] tile solid angle
@@ -139,12 +126,6 @@ class SceneData(NamedTuple):
     tex_offset: jnp.ndarray  # [T] int32
     tex_width: jnp.ndarray  # [T] int32
     tex_height: jnp.ndarray  # [T] int32
-    # fused-path mip-clamped texture atlas (rows <= FUSED_ATLAS_ROWS,
-    # widths <= 128; see _build_fused_atlas): [3*128, rows_pad] where
-    # entry [c*128 + x, row] = texel (row, x, channel c); and per-
-    # texture meta rows (row0, width, height, valid)
-    fused_atlas: jnp.ndarray  # [384, rows_pad]
-    fused_tex_meta: jnp.ndarray  # [T_pad, 4]
 
 
 def num_prims(scene: SceneData) -> int:
@@ -164,21 +145,10 @@ def has_env_map(scene: SceneData) -> bool:
     return scene.env_map.shape[0] > 1 or scene.env_map.shape[1] > 1
 
 
-# brute force wins until the O(N) matmul work exceeds the (much more
-# HBM-expensive) gather walk; crossover measured on v5e is >> 10k tris
+# Scenes with more triangles than this take the lockstep BVH walk
+# instead of the brute-force intersector. The crossover is not yet
+# measured on the H100 (ROADMAP Speed 3).
 BRUTE_FORCE_MAX_PRIMS = 16384
-
-# triangles per cluster — one MXU brute-force block per cluster (the
-# fused kernels' tri blocks are CLUSTER_SIZE wide)
-CLUSTER_SIZE = 128
-# tri sub-blocks within a cluster: the closest-hit/shadow-vis work-
-# list granularity (scene-side AABBs). The streaming kernels derive
-# their DMA/test unit from the scene's sub-AABB count, so this is the
-# single knob (env override for A/B sweeps; 32 measured best vs 64;
-# 16 vs 32 A/B in prof/prof_visunit.py-style harnesses).
-import os as _os
-
-SUB_BLOCK = int(_os.environ.get("SUB_BLOCK", "32"))
 
 
 def _morton_order(centroids: np.ndarray) -> np.ndarray:
@@ -209,10 +179,8 @@ def traversal_method(scene: SceneData, intersector: str = "auto") -> str:
 
             warnings.warn(
                 f"scene has {n} triangles (> {BRUTE_FORCE_MAX_PRIMS}): "
-                "this tracer uses the lockstep-BVH walk, which is "
-                "functional but slow on TPU. The RESTIR_DI tracer uses "
-                "the clustered streaming intersector instead and has no "
-                "triangle-count ceiling.",
+                "rays take the lockstep-BVH walk, which is functional "
+                "but not yet tuned for the H100 (ROADMAP Speed 2).",
                 stacklevel=2,
             )
         intersector = "brute" if n <= BRUTE_FORCE_MAX_PRIMS else "bvh"
@@ -259,8 +227,8 @@ def build_transformation_matrix(translation, rotation_deg, scale) -> np.ndarray:
     return t @ rot(0, rotation_deg[0]) @ rot(1, rotation_deg[1]) @ rot(2, rotation_deg[2]) @ s
 
 
-# env tile grid resolution for the fused candidate stage (512 rows join
-# the per-pixel light CDF; [L+ET, B] matrices stay VMEM-sized)
+# env tile grid resolution for the CDF candidate stage (512 rows join
+# the per-pixel light CDF)
 ENV_TILE_H = 16
 ENV_TILE_W = 32
 
@@ -268,9 +236,9 @@ ENV_TILE_W = 32
 def _build_env_tiles(env: np.ndarray):
     """Solid-angle-weighted ENV_TILE_H x ENV_TILE_W downsample of the
     equirect env map. Each tile t gets (mean radiance, uv rect, solid
-    angle); the fused path renders this piecewise-constant env (the
-    selection pdf is exact for it, so the estimator is unbiased for the
-    downsampled env — a documented fused-path approximation)."""
+    angle). Candidates drawn from a tile carry the tile's mean radiance
+    (the selection pdf is exact for it, so the estimator is unbiased for
+    the downsampled env — a documented approximation of ris_mode="cdf")."""
     eh, ew = env.shape[0], env.shape[1]
     th, tw = ENV_TILE_H, ENV_TILE_W
     row = (np.arange(eh, dtype=np.float64) + 0.5) / eh
@@ -297,60 +265,6 @@ def _build_env_tiles(env: np.ndarray):
     uv = np.stack([u0, v0, du, dv], axis=-1)
     return (rad.astype(np.float32), uv.astype(np.float32),
             sa.astype(np.float32))
-
-
-# fused-path atlas budget: total texel rows (each 128 texels wide).
-# 256 rows keep the two in-kernel row-fetch matmuls ~6 us/tile at 1080p
-FUSED_ATLAS_ROWS = 256
-FUSED_TEX_MAX_W = 128
-
-
-def _box_mip(t: np.ndarray) -> np.ndarray:
-    """One 2x box-filter mip level (odd tails fold into the last bin)."""
-    h, w = t.shape[0], t.shape[1]
-    h2, w2 = max(h // 2, 1), max(w // 2, 1)
-    t = t[: h2 * 2, : w2 * 2]
-    return 0.25 * (t[0::2, 0::2] + t[1::2, 0::2] + t[0::2, 1::2]
-                   + t[1::2, 1::2])
-
-
-def _build_fused_atlas(textures):
-    """Mip-clamped texture atlas for the fused kernels.
-
-    Each texture is box-mipped until its width fits FUSED_TEX_MAX_W=128
-    lanes and the TOTAL row count fits FUSED_ATLAS_ROWS (a standard
-    mip-bias quality tradeoff, documented in SURVEY §9): the atlas then
-    lives in VMEM and a texel fetch is one [384, rows] one-hot matmul +
-    a lane select — no gathers (Mosaic has none). Textures already
-    <= 128 px wide and within budget are stored exactly, so the fused
-    bilinear fetch is bit-comparable to the general path's.
-    Returns (atlas [3*128, rows_pad] f32, meta [T_pad, 4] f32 with
-    per-texture (row0, width, height, valid))."""
-    mips = [np.asarray(t, np.float32) for t in textures]
-    for i in range(len(mips)):
-        while mips[i].shape[1] > FUSED_TEX_MAX_W:
-            mips[i] = _box_mip(mips[i])
-    while sum(m.shape[0] for m in mips) > FUSED_ATLAS_ROWS:
-        # shrink the tallest texture until the shared budget fits
-        i = int(np.argmax([m.shape[0] for m in mips]))
-        if mips[i].shape[0] <= 1:
-            break
-        mips[i] = _box_mip(mips[i])
-
-    rows = sum(m.shape[0] for m in mips)
-    rows_pad = max(-(-rows // 128) * 128, 128)
-    atlas = np.zeros((384, rows_pad), np.float32)
-    t_pad = max(-(-len(mips) // 8) * 8, 8)
-    meta = np.zeros((t_pad, 4), np.float32)
-    r0 = 0
-    for i, m in enumerate(mips):
-        h, w = m.shape[0], m.shape[1]
-        for c in range(3):
-            # entry [c*128 + x, r0 + y] = texel (y, x, c)
-            atlas[c * 128:c * 128 + w, r0:r0 + h] = m[..., c].T
-        meta[i] = (r0, w, h, 1.0)
-        r0 += h
-    return atlas, meta
 
 
 def _luminance_np(c):
@@ -412,12 +326,8 @@ def build_scene(
     if verts.shape[0] == 0:
         raise ValueError("scene has no primitives")
 
-    # --- Morton-order the triangle soup and slice it into spatial
-    # clusters of CLUSTER_SIZE (the TPU acceleration structure: kernels
-    # cull whole clusters per ray tile and brute-force the survivors on
-    # the MXU — the role the reference's per-thread MTBVH walk plays,
-    # scene.h:245-284, reshaped for a machine with no cheap per-lane
-    # control flow).
+    # --- Morton-order the triangle soup: spatially close triangles get
+    # close indices (brute-force chunks and BVH leaves stay compact)
     perm = _morton_order(verts.mean(axis=1))
     verts, norms, uvs, mat_ids = (
         verts[perm], norms[perm], uvs[perm], mat_ids[perm]
@@ -425,27 +335,6 @@ def build_scene(
     inv_perm = np.empty_like(perm)
     inv_perm[perm] = np.arange(perm.shape[0])
     light_prim_ids = [int(inv_perm[i]) for i in light_prim_ids]
-
-    n_prims = verts.shape[0]
-    n_clusters = -(-n_prims // CLUSTER_SIZE)
-    pad = n_clusters * CLUSTER_SIZE - n_prims
-    flat_v = verts.reshape(-1, 3)
-    lo_pad = np.concatenate([flat_v, np.full((pad * 3, 3), np.inf, np.float32)])
-    hi_pad = np.concatenate([flat_v, np.full((pad * 3, 3), -np.inf, np.float32)])
-    cluster_lo = lo_pad.reshape(n_clusters, CLUSTER_SIZE * 3, 3).min(axis=1)
-    cluster_hi = hi_pad.reshape(n_clusters, CLUSTER_SIZE * 3, 3).max(axis=1)
-    # 32-tri sub-block AABBs (4 per cluster, same Morton order): the
-    # shadow-vis kernel streams work lists at this finer granularity —
-    # measured 2x fewer tri*ray MXU tests than whole clusters on the
-    # 81k-tri hall (prof/prof_union.py). Padded tris make empty boxes.
-    n_sub = n_clusters * (CLUSTER_SIZE // SUB_BLOCK)
-    sub_lo = lo_pad.reshape(n_sub, SUB_BLOCK * 3, 3).min(axis=1)
-    sub_hi = hi_pad.reshape(n_sub, SUB_BLOCK * 3, 3).max(axis=1)
-    # fully-padded blocks: +/-inf boxes would pass the slab crossing as
-    # (-inf, +inf) intervals — collapse them to a far degenerate point
-    empty = sub_lo[:, 0] > sub_hi[:, 0]
-    sub_lo = np.where(empty[:, None], np.float32(3e37), sub_lo)
-    sub_hi = np.where(empty[:, None], np.float32(3e37), sub_hi)
 
     # --- light + env alias tables (createLightSampler, scene.cpp:136-157)
     powers = list(light_power)
@@ -472,24 +361,11 @@ def build_scene(
         light_table = build_alias_table(np.ones(1))
         sum_power_inv = 0.0  # no lights: pdf guard handles this
 
-    # --- acceleration structures (stackless MTBVH + MXU brute-force)
+    # --- acceleration structures (stackless MTBVH + brute-force)
     bvh = build_bvh(verts.reshape(-1, 3), impl=bvh_impl)
     from ..ops.intersect_bf import build_tri_transforms
-    from ..ops.pallas.intersect_kernel import build_mat_attr, build_prim_attr
 
     tri_xform = build_tri_transforms(verts.reshape(-1, 3))
-    prim_attr = build_prim_attr(verts, norms, uvs, mat_ids)
-    mat_attr = build_mat_attr(
-        [m.type for m in materials],
-        [m.base_color for m in materials],
-        [m.metallic for m in materials],
-        [m.roughness for m in materials],
-        [m.ior for m in materials],
-        [m.base_map for m in materials],
-        [m.metallic_map for m in materials],
-        [m.roughness_map for m in materials],
-        [m.normal_map for m in materials],
-    )
 
     # --- materials SoA
     mat_arr = lambda f, dt: jnp.asarray(  # noqa: E731
@@ -511,14 +387,11 @@ def build_scene(
         tex_offset = np.asarray(offsets, np.int32)
         tex_width = np.asarray(widths, np.int32)
         tex_height = np.asarray(heights, np.int32)
-        fused_atlas, fused_tex_meta = _build_fused_atlas(textures)
     else:
         tex_data = np.zeros((1, 3), np.float32)
         tex_offset = np.zeros(1, np.int32)
         tex_width = np.ones(1, np.int32)
         tex_height = np.ones(1, np.int32)
-        fused_atlas = np.zeros((384, 128), np.float32)
-        fused_tex_meta = np.zeros((8, 4), np.float32)
 
     if light_prim_ids:
         lp = np.asarray(light_prim_ids, np.int32)
@@ -547,12 +420,6 @@ def build_scene(
         bvh_box=jnp.asarray(bvh.box_id.reshape(-1)),
         bvh_miss=jnp.asarray(bvh.miss.reshape(-1)),
         tri_xform=jnp.asarray(tri_xform),
-        prim_attr=jnp.asarray(prim_attr),
-        mat_attr=jnp.asarray(mat_attr),
-        cluster_lo=jnp.asarray(cluster_lo.astype(np.float32)),
-        cluster_hi=jnp.asarray(cluster_hi.astype(np.float32)),
-        sub_lo=jnp.asarray(sub_lo.astype(np.float32)),
-        sub_hi=jnp.asarray(sub_hi.astype(np.float32)),
         mat_type=mat_arr(lambda m: m.type, np.int32),
         mat_base_color=mat_arr(lambda m: m.base_color, np.float32),
         mat_metallic=mat_arr(lambda m: m.metallic, np.float32),
@@ -582,6 +449,4 @@ def build_scene(
         tex_offset=jnp.asarray(tex_offset),
         tex_width=jnp.asarray(tex_width),
         tex_height=jnp.asarray(tex_height),
-        fused_atlas=jnp.asarray(fused_atlas),
-        fused_tex_meta=jnp.asarray(fused_tex_meta),
     )

@@ -96,7 +96,7 @@ def uniform4(pixel_index, looper, ctr, salt=SALT_CAMERA):
 
 
 def draw4(sampler: str, pixel_index, looper, ctr, salt=SALT_CAMERA):
-    """uniform4 with a static sampler choice — the TPU analogue of the
+    """uniform4 with a static sampler choice — the counterpart of the
     reference's SAMPLER_USE_SOBOL compile switch (common.h:4): "pcg4d"
     is the default counter-based generator; "sobol" draws Owen-scrambled
     Sobol points (utils/sobol.py) with `looper` as the sample index."""

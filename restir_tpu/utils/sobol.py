@@ -1,10 +1,10 @@
 """Owen-scrambled Sobol sampling, stateless and jit-friendly.
 
-TPU equivalent of the reference's optional Sobol sampler
+Counterpart of the reference's optional Sobol sampler
 (SAMPLER_USE_SOBOL, /root/reference/src/sampler.h:13-32): the reference
 loads a precomputed 10k-sample x 200-dim scrambled matrix from
 `sobol_10k_200.bin` and XORs a per-pixel scramble. That table-driven
-design would be a gather per draw on TPU; instead we evaluate Sobol
+design would be a gather per draw; instead we evaluate Sobol
 points directly from direction numbers (first 4 dims below, which is
 what the render passes consume per logical draw slot) and Owen-scramble
 with the Laine-Karras style hash (Burley, "Practical Hash-based Owen

@@ -1,4 +1,4 @@
-"""Interactive browser viewer — the TPU-side equivalent of the
+"""Interactive browser viewer — the counterpart of the
 reference's GLFW/ImGui preview (preview.cpp:141-369, SURVEY.md L7): an
 MJPEG stream over HTTP with WASD/mouse-drag camera controls and a live
 settings panel (tracer, reuse mode, denoiser, tonemap, fps readout).

@@ -1,4 +1,4 @@
-"""MXU brute-force intersector vs the O(N*R) oracle and the BVH walk."""
+"""Brute-force intersector vs the O(N*R) oracle and the BVH walk."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -1,20 +1,12 @@
-"""Material-set specialization (cfg.scene_has_metallic / _dielectric).
-
-When a scene contains no metallic / dielectric materials, the lockstep
-kernels drop those BSDF chains at COMPILE time (the TPU answer to the
-reference's per-thread material switch, material.h:218-256 — idle SIMD
-lanes otherwise pay the union of all branches every bounce). The
-specialized kernels must be bit-identical to the conservative
-all-chains build on every lane the estimator can observe.
+"""Material-set flags (cfg.scene_has_metallic / _dielectric /
+_procedural): derived from the scene by config.mat_flags, and checked
+by renderer.init_state. A specialised config must render exactly like
+the conservative all-chains config (tests/test_specialization.py).
 """
 
-import numpy as np
-import jax.numpy as jnp
 import pytest
 
 from restir_tpu.config import RenderConfig, TracerType, mat_flags
-from restir_tpu.models import gbuffer as gbuf
-from restir_tpu.models import restir_gi
 from restir_tpu.ops.camera import make_camera
 from restir_tpu.scene import procedural
 
@@ -52,41 +44,6 @@ def test_mat_flags_derivation(lam_scene_cam):
     }
 
 
-def test_gi_trace_specialized_is_exact(lam_scene_cam):
-    """GI trace on an all-Lambertian scene: the specialized kernel (no
-    GGX, no dielectric chain) is bit-identical to the conservative one
-    on valid lanes and agrees on valid/delta/pdf everywhere."""
-    scene, cam = lam_scene_cam
-    looper = jnp.uint32(7)
-    base = _cfg(aa_jitter=False)
-    spec = base.replace(**mat_flags(scene))
-    assert not spec.scene_has_metallic and not spec.scene_has_dielectric
-
-    gb, it, mat, d = gbuf.render_gbuffer(scene, cam, cam, base, looper)
-
-    ref_s, ref_pdf, ref_delta, ref_valid = restir_gi.trace_gi_sample_fused(
-        scene, it, mat, d, base, looper, 0, interpret=True
-    )
-    got_s, got_pdf, got_delta, got_valid = restir_gi.trace_gi_sample_fused(
-        scene, it, mat, d, spec, looper, 0, interpret=True
-    )
-
-    valid = np.asarray(ref_valid)
-    np.testing.assert_array_equal(valid, np.asarray(got_valid))
-    np.testing.assert_array_equal(
-        np.asarray(ref_delta), np.asarray(got_delta))
-    np.testing.assert_array_equal(np.asarray(ref_pdf), np.asarray(got_pdf))
-    for name, a, b in (
-        ("lo", ref_s.lo, got_s.lo),
-        ("nv", ref_s.nv, got_s.nv),
-        ("xs", ref_s.xs, got_s.xs),
-        ("ns", ref_s.ns, got_s.ns),
-    ):
-        a = np.asarray(a)[valid]
-        b = np.asarray(b)[valid]
-        np.testing.assert_array_equal(a, b, err_msg=name)
-
-
 def test_mismatched_flags_raise(lam_scene_cam):
     """init_state refuses a cfg whose static flags would compile OUT a
     BSDF chain the scene uses (silent mis-render otherwise — the
@@ -104,60 +61,3 @@ def test_mismatched_flags_raise(lam_scene_cam):
     renderer.init_state(_cfg(), cam, mg)
     # exact flags accepted
     renderer.init_state(_cfg(**mat_flags(mg)), cam, mg)
-
-
-def test_fused_fallback_warns_once(lam_scene_cam, monkeypatch):
-    """A ReSTIR config that misses the fused path warns once with the
-    failed gate named (VERDICT r4 weak #7: the ~6x fallback was
-    silent). Off-TPU the general pipeline is the intended path, so the
-    warning only fires on TPU — emulated here by patching _on_tpu."""
-    import warnings
-
-    from restir_tpu import renderer
-    from restir_tpu.ops import intersect
-
-    monkeypatch.setattr(intersect, "_on_tpu", lambda: True)
-    scene, cam = lam_scene_cam
-    # width 100 breaks the fused W % 128 == 0 gate
-    cfg = RenderConfig(width=100, height=32, tracer=TracerType.RESTIR_DI)
-    renderer._warned_fallback.discard(cfg)
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        renderer.init_state(cfg, cam, scene)
-        renderer.init_state(cfg, cam, scene)  # second call: no new warn
-    msgs = [str(w.message) for w in rec if "general" in str(w.message)]
-    assert len(msgs) == 1, msgs
-    assert "128" in msgs[0]
-
-
-def test_di_reuse_specialized_is_exact(lam_scene_cam):
-    """Fused DI reuse (RIS + vis + temporal) with has_met=False matches
-    the conservative kernel bit for bit on an all-Lambertian scene."""
-    from restir_tpu.ops.pallas import fused_di as fk
-
-    scene, cam = lam_scene_cam
-    looper = jnp.uint32(3)
-    cfg = _cfg(tracer=TracerType.RESTIR_DI)
-    cam_vec = fk.pack_camera(cam, W, H)
-    gb = fk.gbuffer_pack_pallas(
-        cam_vec, cam_vec, looper, scene.tri_xform, scene.prim_attr,
-        scene.mat_attr, scene.cluster_lo, scene.cluster_hi,
-        width=W, height=H, aa_jitter=False,
-        single_sided=cfg.single_sided_lights, interpret=True,
-    )
-    prev = jnp.zeros((fk.PT_CH, R))
-
-    def run(has_met):
-        return fk.reuse_pallas(
-            gb, prev, looper,
-            scene.light_verts, scene.light_normal, scene.light_radiance,
-            scene.light_area, scene.light_center, scene.light_radius,
-            scene.tri_xform, scene.cluster_lo, scene.cluster_hi,
-            scene.sub_lo, scene.sub_hi,
-            k=cfg.cdf_candidates, single_sided=cfg.single_sided_lights,
-            temporal=True, temporal_clamp=cfg.temporal_clamp,
-            has_met=has_met, interpret=True,
-        )
-
-    np.testing.assert_array_equal(
-        np.asarray(run(True)), np.asarray(run(False)))

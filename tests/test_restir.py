@@ -1,7 +1,7 @@
 """ReSTIR DI end-to-end statistical tests.
 
-The reference ships no tests; the natural strategy on TPU (SURVEY.md §4)
-is statistical: ReSTIR DI is an unbiased estimator of direct lighting
+The reference ships no tests; the natural strategy (SURVEY.md §4) is
+statistical: ReSTIR DI is an unbiased estimator of direct lighting
 (RIS + visibility reuse stay unbiased; temporal/spatial reuse introduce
 only the M-capped correlation bias), so its many-frame average must
 match the unbiased NEE path tracer (PTDirectKernel) on the same scene.
@@ -86,7 +86,7 @@ def test_spatiotemporal_lower_variance_than_ris():
     # temporal reuse must actually be accumulating history
     assert np.asarray(st_state.dir_reservoir.m).mean() > 2 * 8
 
-    # the TPU-native CDF candidate stage must beat the reference's
+    # the CDF candidate stage must beat the reference's
     # power-proportional RIS at equal (small) candidate budget
     cdf_cfg = base.replace(ris_mode="cdf", cdf_candidates=4,
                            reuse=ReuseMode.NONE)
@@ -97,8 +97,8 @@ def test_spatiotemporal_lower_variance_than_ris():
 
 @pytest.mark.slow
 def test_cdf_k4_matches_reference_k32():
-    """Workload parity behind the headline fps (VERDICT r3 weak #5):
-    the bench runs the TPU-native cdf sampler at K=4 candidates while
+    """Workload parity behind the headline fps: the bench runs the
+    cdf sampler at K=4 candidates while
     the reference ships K=32 power-proportional candidates
     (restir.cu:3 ReservoirSize). This pins that cdf-K4 matches or
     beats reference-K32 single-frame error at EQUAL frame count on a
@@ -179,8 +179,8 @@ def test_restir_gi_finite_and_positive(scene_cam):
 
 @pytest.mark.slow
 def test_restir_gi_split_path_matches_fused(scene_cam, monkeypatch):
-    """The two-program RESTIR_GI split (used at >= 1080p-scale) must
-    produce the same image as the single fused program."""
+    """The two-program RESTIR_GI split (used at >= 512^2 pixels) must
+    produce the same image as the single program."""
     scene, cam = scene_cam
     cfg = RenderConfig(width=W, height=H, tracer=TracerType.RESTIR_GI,
                        trace_depth=2)

@@ -69,8 +69,7 @@ def test_sharded_matches_single_device(setup):
 
 @pytest.mark.slow
 def test_sharded_gi_matches_single_device(setup):
-    """RESTIR_GI over the row-band mesh == single device (VERDICT r4
-    missing #4: GI had no multi-chip evidence). The GI temporal motion
+    """RESTIR_GI over the row-band mesh == single device. The GI temporal motion
     gather reads the full previous-frame reservoir — XLA inserts the
     cross-band collective gather; this pins that it is numerically a
     pure layout choice."""
@@ -94,47 +93,3 @@ def test_sharded_gi_matches_single_device(setup):
     a, b = np.asarray(f_single), np.asarray(f_shard)
     assert np.isfinite(b).all()
     assert np.allclose(a, b, atol=1e-5), np.abs(a - b).max()
-
-
-@pytest.mark.slow
-def test_fused_sharded_matches_single_device():
-    """The shard_map'd FUSED pipeline (row bands + explicit ppermute
-    halos for temporal/spatial/SVGF windows) reproduces the
-    single-device fused step bit-near over 3 frames — the real hot
-    path's multi-chip story (round-2 VERDICT missing #4)."""
-    import jax
-    import numpy as np
-
-    from restir_tpu.config import DenoiserType, RenderConfig, TracerType
-    from restir_tpu.models import restir_di_fused as fused
-    from restir_tpu.ops.camera import make_camera
-    from restir_tpu.parallel import (
-        make_fused_sharded_step,
-        make_mesh,
-        shard_fused_state,
-    )
-    from restir_tpu.scene.procedural import many_light_scene
-
-    scene, camkw = many_light_scene(n_lights=16, n_blocks=6,
-                                    bvh_impl="numpy")
-    cam = make_camera(**camkw)
-    cfg = RenderConfig(width=256, height=64, tracer=TracerType.RESTIR_DI,
-                       denoiser=DenoiserType.SVGF)
-    mesh = make_mesh(jax.devices()[:8])
-
-    state = shard_fused_state(fused.init_state(cfg, cam), mesh)
-    step = make_fused_sharded_step(cfg, mesh, interpret=True)
-    frame = None
-    for _ in range(3):
-        state, frame = step(scene, state, cam)
-    sharded = np.asarray(frame)
-
-    sstate = fused.init_state(cfg, cam)
-    sframe = None
-    for _ in range(3):
-        sstate, sframe = fused.step_fused(scene, sstate, cam, cfg,
-                                          interpret=True)
-    single = np.asarray(sframe)
-
-    assert np.isfinite(sharded).all()
-    np.testing.assert_allclose(sharded, single, rtol=1e-5, atol=1e-6)
